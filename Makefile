@@ -3,27 +3,28 @@
 
 PY ?= python
 
-.PHONY: all ext test test-fast bench warm scaling clean
+.PHONY: all ext test test-fast test-gpu bench smoke scaling clean
 
 all: ext
 
 ext:
-	$(PY) setup.py build_ext --inplace
+	$(PY) -m cfrk_tpu.io.build_native
 
 test:
 	$(PY) -m pytest tests/ -q
 
 test-fast:
-	$(PY) -m pytest tests/ -q -x --ignore=tests/test_pallas.py \
-	    --ignore=tests/test_fuzz.py
+	$(PY) -m pytest tests/ -q -x --ignore=tests/test_fuzz.py
+
+# On a machine with an NVIDIA GPU.
+test-gpu:
+	$(PY) -m pytest tests/ -q -m gpu
 
 bench:
 	$(PY) bench.py
 
-# Pre-compile the exact kernel bench.py times (remote Mosaic cache warm;
-# run periodically so `make bench` never eats a 150-650 s cold compile).
-warm:
-	timeout 800 $(PY) tools/warm_compile.py
+smoke:
+	$(PY) chip_smoke.py
 
 scaling:
 	$(PY) tools/scaling_bench.py --cpu

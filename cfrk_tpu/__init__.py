@@ -1,10 +1,10 @@
-"""cfrk-tpu: a TPU-native k-mer counting framework.
+"""cfrk-tpu: a k-mer counting framework in JAX, run on NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of ``hpc-fci-mackenzie/cfrk``
-(a CUDA per-read k-mer counter) designed for TPU hardware: host-side
-FASTA ingest and 2-bit packing, fixed-shape padded batches, MXU/Pallas
-histogram kernels, pjit/shard_map scale-out over device meshes, and the
-exact ``.cfrk`` output format of the reference.
+(a CUDA per-read k-mer counter): host-side FASTA ingest and 2-bit
+packing, fixed-shape padded batches, XLA scatter-add and row-sort
+histogram routes, shard_map scale-out over device meshes, and the exact
+``.cfrk`` output format of the reference.
 
 Quick start::
 

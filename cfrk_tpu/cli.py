@@ -31,7 +31,7 @@ __all__ = ["main", "build_parser"]
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cfrk-tpu",
-        description="TPU-native k-mer counting (reference-compatible .cfrk output)",
+        description="k-mer counting on GPUs with JAX (reference-compatible .cfrk output)",
     )
     from .version import __version__
 
@@ -79,21 +79,21 @@ def build_parser() -> argparse.ArgumentParser:
         "--impl",
         default="auto",
         choices=[
-            "auto", "compare", "matmul", "scatter", "pallas", "host", "sort",
+            "auto", "compare", "matmul", "scatter", "host", "sort",
         ],
         help=(
-            "kernel implementation (auto picks per backend/k; 'sort' = "
-            "device sort+RLE spectrum accumulation, auto for k >= 9 "
-            "on TPU)"
+            "kernel implementation (auto picks from mode, k and read "
+            "length; 'host' = NumPy oracle; 'sort' = device sort+RLE "
+            "spectrum accumulation)"
         ),
     )
     p.add_argument(
         "--batch-size", type=int, default=None,
         help=(
             "reads per device batch (default: auto — scales inversely "
-            "with read length to amortize per-dispatch overhead; 32768 "
-            "at 150 bp on TPU, 8192 off-TPU/stdin.  The reference's "
-            "chunkSize positional overrides it)"
+            "with read length to bound padded device memory; 32768 at "
+            "150 bp, 8192 for stdin.  The reference's chunkSize "
+            "positional overrides it)"
         ),
     )
     p.add_argument("--max-len", type=int, default=None, help="pad reads to this length")
@@ -178,15 +178,6 @@ def build_parser() -> argparse.ArgumentParser:
             "result is a bounded-memory multiway merge (byte-identical "
             "to the unbounded run).  The reference OOM-exited instead, "
             "src/kmer_main.cu:51-56"
-        ),
-    )
-    p.add_argument(
-        "--packed",
-        action="store_true",
-        help=(
-            "stream mode, k<=8: packed-emit Pallas kernel (1-2 bytes/bin "
-            "of device-to-host traffic; single-device or dp mesh; "
-            "first-ever compile can be slow)"
         ),
     )
     p.add_argument(
@@ -455,6 +446,9 @@ def _write_sparse_chunks(
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    from .runtime.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     if args.list_devices:
         import jax
 
@@ -688,7 +682,7 @@ def _run_byte_ranged(args, t0) -> int:
             canonical=args.canonical, impl=args.impl,
             batch_size=args.batch_size, resume=args.resume,
             checkpoint_every=args.checkpoint_every or 1,
-            nonzero=args.nonzero, packed=args.packed,
+            nonzero=args.nonzero,
             mesh=args.mesh, seqpar=args.seqpar,
             byte_range=(start, limit), min_qual=args.min_qual,
         )
@@ -877,7 +871,6 @@ def _run_workflow(args) -> int:
             spectrum_format=args.spectrum_format,
             max_len=args.max_len,
             nonzero=args.nonzero,
-            packed=args.packed,
             resume=args.resume,
             checkpoint_every=args.checkpoint_every,
             min_count=args.min_count,
@@ -967,7 +960,7 @@ def _run_inputs(args, t0) -> int:
                     canonical=args.canonical, impl=args.impl,
                     batch_size=args.batch_size, resume=args.resume,
                     checkpoint_every=args.checkpoint_every or 1,
-                    nonzero=args.nonzero, packed=args.packed,
+                    nonzero=args.nonzero,
                     mesh=args.mesh, seqpar=args.seqpar,
                     min_qual=args.min_qual,
                 )

@@ -1,17 +1,17 @@
 """Window extraction: padded code batches → k-mer index components (JAX).
 
 Replaces the reference's ``ComputeIndex`` kernel (``src/kmer_kernel.cu:21-49``),
-which ran one CUDA thread per symbol with a k-long ``powf`` loop.  On TPU the
+which ran one CUDA thread per symbol with a k-long ``powf`` loop.  Here the
 same computation is k static shifted slices combined with shift/mask integer
-arithmetic — fully vectorised on the VPU and fused by XLA.
+arithmetic — fully vectorised and fused by XLA.
 
 The key representation choice: a k-mer index is carried as a ``(hi, lo)``
 pair of int32s, ``hi`` = the first ``ceil(k/2)`` bases, ``lo`` = the rest.
 
 * it keeps every component under 2*15 = 30 bits, so k up to 31 never needs
-  64-bit integers (slow on TPU);
-* the per-read dense histogram becomes a batched OUTER-PRODUCT matmul over
-  one-hot(hi) × one-hot(lo) — the MXU does the scatter (see perread.py);
+  64-bit integers (JAX's x64 mode stays off);
+* the one-hot cross-check routes contract one-hot(hi) × one-hot(lo) as a
+  batched OUTER-PRODUCT matmul (see perread.py);
 * large-k bucket routing shards tables by ``hi`` bits (see parallel/).
 """
 

@@ -1,23 +1,22 @@
-"""Per-read dense k-mer histograms on TPU (XLA path).
+"""Per-read dense k-mer histograms (XLA path).
 
 Replaces the reference's ``ComputeFreqNew`` kernel (``src/kmer_kernel.cu:73-90``),
-which used one CUDA block per read and ``atomicAdd`` scatter.  TPUs have no
-cheap atomics and XLA scatter serialises, so the TPU-native formulation is:
+which used one CUDA block per read and ``atomicAdd`` into that read's row.
+The default route is the same design through XLA: ``.at[].add`` into a
+``[B, 4**k]`` table, which the GPU backend lowers to atomic adds.  For
+k <= 3 (4**k <= 64 bins) a compare-and-sum is used instead, and a
+one-hot contraction
 
     counts[b, hi, lo] = Σ_w one_hot(hi[b, w]) ⊗ one_hot(lo[b, w])
 
-a batched matmul with contraction over the window axis — the systolic MXU
-performs the "scatter" as an outer-product accumulation at full throughput.
-For k <= 3 (4**k <= 64, too narrow to feed the 128-wide MXU) a VPU
-compare-and-sum is used instead.
-
-Counts are accumulated in float32: one-hot values are exactly 0/1 and row
-sums are bounded by the window count (< 2**24), so the result is exact.
+is kept as an explicit ``impl='matmul'`` cross-check.  Its float32
+accumulation is exact: one-hot operands are 0/1 (exact in TF32 too) and
+every bin stays below 2**24 — larger window counts reroute to scatter.
 
 The reference could only express per-read dense counting; for k where
 4**k * batch exceeds memory it aborted (``src/kmer_main.cu:51-56``).  Here
 k <= 8 is supported per-read (65,536 bins); larger k belongs to the
-spectrum / sparse paths (see ops/spectrum.py, parallel/bucket.py).
+spectrum / sparse paths (see ops/spectrum.py, ops/perread_sparse.py).
 """
 
 from __future__ import annotations
@@ -34,14 +33,14 @@ from .encode import (
     window_indices,
 )
 
-__all__ = ["count_perread", "MAX_PERREAD_K"]
+__all__ = ["count_perread", "resolve_perread_impl", "MAX_PERREAD_K"]
 
 MAX_PERREAD_K = 8
 
 
 @partial(jax.jit, static_argnums=(1, 2), inline=True)
 def _count_compare(codes: jax.Array, k: int, canonical: bool) -> jax.Array:
-    """VPU path for tiny k: counts[b, v] = Σ_w (idx[b, w] == v)."""
+    """Compare path for tiny k: counts[b, v] = Σ_w (idx[b, w] == v)."""
     idx = window_indices(codes, k, canonical)  # [B, W], -1 invalid
     bins = jnp.arange(4**k, dtype=jnp.int32)
     eq = idx[..., None] == bins  # [B, W, 4^k] — 4^k <= 64, cheap
@@ -50,8 +49,7 @@ def _count_compare(codes: jax.Array, k: int, canonical: bool) -> jax.Array:
 
 @partial(jax.jit, static_argnums=(1, 2), inline=True)
 def _count_scatter(codes: jax.Array, k: int, canonical: bool) -> jax.Array:
-    """Scatter-add path: fast off-TPU (XLA CPU scatters are cheap; the
-    one-hot matmul is pathologically slow there), exact everywhere.
+    """Scatter-add path (atomic adds on the GPU), exact everywhere.
     Invalid windows redirect to column 4**k and are dropped."""
     idx = window_indices(codes, k, canonical)  # [B, W], -1 invalid
     b, w = idx.shape
@@ -61,9 +59,9 @@ def _count_scatter(codes: jax.Array, k: int, canonical: bool) -> jax.Array:
     return counts.at[rows, flat].add(1, mode="drop")
 
 
-@partial(jax.jit, static_argnums=(1, 2, 3), inline=True)
-def _count_matmul(codes: jax.Array, k: int, canonical: bool, acc_dtype) -> jax.Array:
-    """MXU path: batched one-hot outer-product matmul over windows."""
+@partial(jax.jit, static_argnums=(1, 2), inline=True)
+def _count_matmul(codes: jax.Array, k: int, canonical: bool) -> jax.Array:
+    """Batched one-hot outer-product matmul over windows."""
     kh, kl = split_k(k)
     fh, fl = 4**kh, 4**kl
     if canonical:
@@ -71,14 +69,28 @@ def _count_matmul(codes: jax.Array, k: int, canonical: bool, acc_dtype) -> jax.A
     else:
         wc = window_components(codes, k)
         hi, lo, valid = wc.hi, wc.lo, wc.valid
-    oh_hi = jax.nn.one_hot(hi, fh, dtype=acc_dtype)
-    oh_hi = oh_hi * valid[..., None].astype(acc_dtype)
-    oh_lo = jax.nn.one_hot(lo, fl, dtype=acc_dtype)
+    oh_hi = jax.nn.one_hot(hi, fh, dtype=jnp.float32)
+    oh_hi = oh_hi * valid[..., None].astype(jnp.float32)
+    oh_lo = jax.nn.one_hot(lo, fl, dtype=jnp.float32)
     counts = jnp.einsum(
         "bwh,bwl->bhl", oh_hi, oh_lo, preferred_element_type=jnp.float32
     )
     b = codes.shape[0]
     return counts.reshape(b, fh * fl).astype(jnp.int32)
+
+
+def resolve_perread_impl(k: int, w: int, impl: str = "auto") -> str:
+    """The device route for a dense per-read batch of ``w`` windows/read.
+
+    Depends on k and the row width only: ``compare`` for 4**k <= 64,
+    ``scatter`` above.  An explicit ``matmul`` whose float32 bins could
+    pass 2**24 reroutes to the int32 scatter.
+    """
+    if impl == "auto":
+        return "compare" if 4**k <= 64 else "scatter"
+    if impl == "matmul" and w >= 2**24:
+        return "scatter"
+    return impl
 
 
 def count_perread(
@@ -87,36 +99,20 @@ def count_perread(
     *,
     canonical: bool = False,
     impl: str = "auto",
-    acc_dtype=None,
     out_dtype=None,
 ) -> jax.Array:
     """Dense per-read histograms: codes [B, L] int8 → counts [B, 4**k].
 
-    impl: 'auto' | 'compare' | 'matmul' | 'pallas'.
-    acc_dtype: matmul operand dtype (default bfloat16 on TPU, float32 else).
-    out_dtype: int32 (default) or int16 — int16 halves the dominant HBM
-        write traffic and is safe when windows/read < 2**15 (counts are
-        bounded by the window count).
+    impl: 'auto' | 'compare' | 'scatter' | 'matmul' | 'host' (the NumPy
+    oracle; traced callers get 'scatter' instead).
+    out_dtype: int32 (default) or int16 — int16 halves the output bytes
+        and is safe when windows/read < 2**15 (counts are bounded by the
+        window count).
     """
     out_dtype = jnp.dtype(out_dtype) if out_dtype is not None else jnp.int32
     w = codes.shape[-1] - k + 1
     if out_dtype == jnp.int16 and w >= 2**15:
         raise ValueError("int16 counts unsafe for >= 2**15 windows/read")
-    if w >= 2**24 and (
-        impl == "matmul"
-        or (
-            impl == "auto"
-            and 4**k > 64  # k <= 3 resolves to compare: int32, exact
-            and not (jax.default_backend() == "tpu" and k >= 5)
-        )
-    ):
-        # The f32 einsum accumulators stay exact only below 2**24 per
-        # bin; a repeat-dominated contig with >= 16.8M windows could
-        # saturate one.  Scatter accumulates in int32.  The pallas
-        # kernel (the TPU auto choice for k >= 5) defaults to
-        # int8/int32 MXU accumulation — exact for any window count —
-        # but auto-k=4 would land on the f32 matmul, so it reroutes.
-        impl = "scatter"
     if k > MAX_PERREAD_K:
         raise ValueError(
             f"per-read dense counting supports k <= {MAX_PERREAD_K} "
@@ -124,40 +120,22 @@ def count_perread(
         )
     if codes.ndim != 2:
         raise ValueError(f"codes must be [B, L], got {codes.shape}")
+    impl = resolve_perread_impl(k, w, impl)
     if impl == "host" and isinstance(codes, jax.core.Tracer):
         # 'host' cannot run under a trace (sharded/seqpar paths jit
-        # their dispatch); reroute to the traceable scatter impl — the
-        # same substitution the auto path makes — instead of crashing
-        # with a TracerArrayConversionError.
+        # their dispatch); the traceable scatter computes the same.
         impl = "scatter"
-    if impl == "auto":
-        if 4**k <= 64:
-            impl = "compare"
-        elif jax.default_backend() != "tpu":
-            # Off-TPU every XLA formulation of this op is slow (CPU
-            # scatter serialises; the one-hot matmul is worse).  Outside
-            # a trace, count on host via bincount; inside one (sharded
-            # CPU test paths), fall back to the traceable scatter.
-            impl = "scatter" if isinstance(codes, jax.core.Tracer) else "host"
-        elif k >= 5:
-            # The fused Pallas kernel writes counts to HBM exactly once;
-            # the XLA einsum materialises one-hots + f32 output (~6x traffic).
-            impl = "pallas"
-        else:
-            impl = "matmul"
     if impl == "compare":
         return _count_compare(codes, k, canonical).astype(out_dtype)
     if impl == "scatter":
         return _count_scatter(codes, k, canonical).astype(out_dtype)
+    if impl == "matmul":
+        return _count_matmul(codes, k, canonical).astype(out_dtype)
     if impl == "host":
         import numpy as np
 
         # Sort composite (read, bin) keys and length-encode the runs —
         # O(B·W log B·W) on the windows, never on the B·4**k bins.
-        # np.add.at was measured at ~220 us/update at the full
-        # 8192×4**8 batch shape (261 s/batch on this host; the 2 GB
-        # random-write target defeats every cache) vs ~0.2 s for the
-        # sort route — same lesson as SparseAccumulator._fold.
         idx = np.asarray(window_indices(codes, k, canonical))
         b, w = idx.shape
         rows = np.broadcast_to(np.arange(b, dtype=np.int64)[:, None], (b, w))
@@ -170,17 +148,4 @@ def count_perread(
         if len(comp):
             counts.reshape(-1)[comp[starts]] = runs.astype(out_dtype)
         return jnp.asarray(counts)
-    if impl == "matmul":
-        if acc_dtype is None:
-            platform = jax.default_backend()
-            acc_dtype = jnp.bfloat16 if platform == "tpu" else jnp.float32
-        return _count_matmul(codes, k, canonical, acc_dtype).astype(out_dtype)
-    if impl == "pallas":
-        from .pallas.perread import count_perread_pallas
-
-        # int16 conversion happens outside the kernel: an int16 VMEM
-        # output block blew the remote Mosaic compile budget.
-        return count_perread_pallas(codes, k, canonical=canonical).astype(
-            out_dtype
-        )
     raise ValueError(f"unknown impl {impl!r}")

@@ -25,203 +25,25 @@ __all__ = [
     "count_perread_sparse",
     "count_perread_sparse_large",
     "count_perread_rows",
-    "count_perread_rows_tiled",
-    "rowsort_eligible",
     "compact_pairs",
     "valid_pair_prefix",
     "pairs_to_host",
     "MAX_SPARSE_PERREAD_K",
-    "ROWSORT_MAX_WINDOWS",
 ]
 
-# The rowsort kernel's padded-window-axis ceiling (g <= 2048 sub-rows,
-# ~256 kb contigs — measured compile/parity/speed in docs/PERF.md).
-# Beyond it, per-read rows on TPU TILE the position axis (see
-# count_perread_rows_tiled): the full-width XLA lax.sort fallback is
-# compile-PATHOLOGICAL on TPU at >= 128 kb row widths (a 64x131041
-# probe held the remote Mosaic/XLA compiler for 45+ minutes, round 4).
-ROWSORT_MAX_WINDOWS = 262144
 
-
-def rowsort_eligible(k: int, w: int, impl: str = "auto") -> bool:
-    """True when the fused Pallas row-sort kernel should serve this shape.
-
-    On TPU, any k in 1..31 routes to ops/pallas/rowsort.py as long as
-    the padded window axis stays VMEM-friendly: next_pow2(W) <= 262144
-    (g <= 2048 sub-rows at rb=1 — ~1 MB key blocks; round 4 extended
-    the round-3 16 kb cap to 64 kb and then to 256 kb), i.e.
-    reads/contigs up to ~256 kb.  Measured 7.45x the XLA row sort at
-    4 kb contigs, ~4x at 32-64 kb, 3.57/3.00 Gb/s at 128/256 kb
-    (one-time Mosaic compile 83/88 s per length bucket), parity-pinned
-    on-chip at 64/128/256 kb (also 2-key k=31 at 128 kb); longer
-    contigs stream through window tiling or the XLA full-row sort.
-    Off-TPU the XLA ``lax.sort`` path is both the oracle and the
-    faster choice (interpret-mode Pallas is debug-only).
-    """
-    import jax
-
-    if impl not in ("auto", "pallas"):
-        return False
-    n = 128
-    while n < w:
-        n *= 2
-    return n <= 262144 and jax.default_backend() == "tpu"
-
-
-def count_perread_rows(
-    codes, k: int, canonical: bool = False, impl: str = "auto"
-):
+def count_perread_rows(codes, k: int, canonical: bool = False):
     """Per-read sparse histogram rows — the one dispatcher every driver
     (in-memory, streaming, sharded local function) routes through.
 
     Returns the sorted-RLE row layout of :func:`count_perread_sparse`
     ((idx, counts) for k <= 15) or :func:`count_perread_sparse_large`
-    ((hi, lo, counts) for 16 <= k <= 31).  ``impl='auto'`` picks the
-    fused Pallas sort+RLE kernel on TPU (measured 1.12 ms/batch at
-    k=8/150 bp vs 2.65 ms for the XLA row sort — docs/PERF.md) and the
-    XLA path elsewhere; ``impl='sort'`` forces XLA (parity oracle).
+    ((hi, lo, counts) for 16 <= k <= 31): XLA's row sort followed by
+    the shared RLE, at any row width.
     """
-    w = codes.shape[-1] - k + 1
-    if rowsort_eligible(k, w, impl):
-        from .pallas.rowsort import rowsort_rle_pallas, rowsort_rle_pallas_large
-
-        if k <= 15:
-            return rowsort_rle_pallas(codes, k, canonical=canonical)
-        return rowsort_rle_pallas_large(codes, k, canonical=canonical)
-    if (
-        impl in ("auto", "pallas")
-        and w > ROWSORT_MAX_WINDOWS
-        and jax.default_backend() == "tpu"
-    ):
-        # Contigs past the kernel ceiling: the full-width XLA sort is
-        # compile-pathological on TPU (see ROWSORT_MAX_WINDOWS), so
-        # tile the position axis through the Pallas kernel and merge
-        # on host — exact, and it keeps the 3+ Gb/s fast path.
-        if isinstance(codes, jax.core.Tracer):
-            raise ValueError(
-                f"per-read rows at {w} windows/read inside a traced "
-                "context (mesh/sharded dispatch) would fall to the "
-                "XLA row sort, whose TPU compile hangs at this width; "
-                "run such contigs unsharded (--devices 1, streaming) "
-                "so the position-tiled route applies"
-            )
-        return count_perread_rows_tiled(codes, k, canonical, impl=impl)
     if k <= 15:
         return count_perread_sparse(codes, k, canonical)
     return count_perread_sparse_large(codes, k, canonical)
-
-
-def count_perread_rows_tiled(
-    codes, k: int, canonical: bool = False, *, impl: str = "auto",
-    step: int | None = None,
-):
-    """Per-read sparse rows for reads LONGER than the kernel ceiling.
-
-    Splits the position axis into tiles of ``step`` windows with k-1
-    halo columns (every window lands in exactly one tile — the same
-    discipline as ``pipeline.count.iter_spill_chunks``), batches all
-    tiles of all reads through :func:`count_perread_rows` (each tile is
-    rowsort-eligible, so the Pallas fast path serves them), and merges
-    each read's per-tile (key, count) pairs on host.  The result is
-    ARRAY-EQUAL to the single-shot oracle (`count_perread_sparse[...]`):
-    a run-start's position in the sorted row is the exclusive prefix
-    sum of the preceding run counts, so the exact layout reconstructs
-    from the merged aggregates.
-
-    Host-merge cost is O(total windows · log) NumPy per batch — tiny
-    next to the device work at these row widths.  Returns NumPy arrays
-    (callers' ``narrow_for_fetch``/``pairs_to_host`` accept them).
-    """
-    import numpy as np
-
-    from .sparse import INVALID_SENTINEL, LO_BASES
-
-    codes_np = np.asarray(codes)
-    b, length = codes_np.shape
-    w = length - k + 1
-    if w <= 0:
-        raise ValueError(f"read length {length} < k={k}")
-    step = step or ROWSORT_MAX_WINDOWS
-    tl = step + k - 1
-    tiles = []
-    for s in range(0, w, step):
-        sl = codes_np[:, s : min(s + tl, length)]
-        if sl.shape[1] < tl:
-            sl = np.pad(
-                sl, ((0, 0), (0, tl - sl.shape[1])), constant_values=-1
-            )
-        tiles.append(sl)
-    n_tiles = len(tiles)
-    stacked = np.concatenate(tiles, axis=0)  # tile-major
-    # Bounded sub-batches (ADVICE r4): one dispatch of ALL tiles of ALL
-    # reads can exceed HBM at tens-of-Mb contigs (n_tiles*b rows of
-    # `step`-wide int32 key/pair streams), so cap each dispatch at ~8Mi
-    # windows (~100 MB of device key+pair traffic) and fetch
-    # incrementally — the host merge below is chunk-order-agnostic.
-    rows_per = max(1, (8 << 20) // step)
-    host_parts: list[list] | None = None
-    for s in range(0, stacked.shape[0], rows_per):
-        out = narrow_for_fetch(
-            count_perread_rows(
-                jnp.asarray(stacked[s : s + rows_per]), k, canonical,
-                impl=impl,
-            ),
-            k,
-        )
-        arrs = [np.asarray(a) for a in out]
-        if host_parts is None:
-            host_parts = [[] for _ in arrs]
-        for lst, a in zip(host_parts, arrs):
-            lst.append(a)
-    host = [np.concatenate(lst, axis=0) for lst in host_parts]
-
-    two_key = len(host) == 3
-    if two_key:
-        hi_t, lo_t, cnt_t = host
-        keys_t = (hi_t.astype(np.uint64) << np.uint64(2 * LO_BASES)) | (
-            lo_t.astype(np.uint64)
-        )
-        hi_out = np.full((b, w), INVALID_SENTINEL, np.uint32)
-        lo_out = np.full((b, w), INVALID_SENTINEL, np.uint32)
-    else:
-        keys_t, cnt_t = host
-        sent = 4**k
-        idx_out = np.full((b, w), sent, np.int32)
-    cnt_out = np.zeros((b, w), np.int32)
-
-    for r in range(b):
-        ks = np.concatenate(
-            [keys_t[t * b + r] for t in range(n_tiles)]
-        ).astype(np.int64 if not two_key else np.uint64)
-        cs = np.concatenate(
-            [cnt_t[t * b + r] for t in range(n_tiles)]
-        ).astype(np.int64)
-        m = cs > 0
-        ks, cs = ks[m], cs[m]
-        if not ks.size:
-            continue
-        order = np.argsort(ks, kind="stable")
-        ks, cs = ks[order], cs[order]
-        firstm = np.ones(ks.size, bool)
-        firstm[1:] = ks[1:] != ks[:-1]
-        starts = np.nonzero(firstm)[0]
-        sums = np.add.reduceat(cs, starts)
-        ukeys = ks[firstm]
-        pos = np.zeros(sums.size, np.int64)
-        np.cumsum(sums[:-1], out=pos[1:])
-        if two_key:
-            hi_out[r, pos] = (ukeys >> np.uint64(2 * LO_BASES)).astype(
-                np.uint32
-            )
-            lo_out[r, pos] = (
-                ukeys & np.uint64((1 << (2 * LO_BASES)) - 1)
-            ).astype(np.uint32)
-        else:
-            idx_out[r, pos] = ukeys.astype(np.int32)
-        cnt_out[r, pos] = sums.astype(np.int32)
-    if two_key:
-        return hi_out, lo_out, cnt_out
-    return idx_out, cnt_out
 
 
 def compact_pairs(idx: jax.Array, counts: jax.Array, k: int):
@@ -231,9 +53,8 @@ def compact_pairs(idx: jax.Array, counts: jax.Array, k: int):
     sentinel 4**k wraps to 0, but it only appears on count-0 cells,
     which every consumer (the pair formatters) skips — so the wrap is
     unobservable.  Counts are bounded by windows/read: uint8 below 256
-    (short reads — the common case), int16 below 2**15.  At the rowsort
-    kernel's ~0.23 ms/batch device pace the pair drain needs ~15 GB/s
-    of D2H at 3 bytes/pair; every byte here is production PCIe headroom.
+    (short reads — the common case), int16 below 2**15.  Every byte cut
+    here is device-to-host transfer saved on each batch.
     :func:`pairs_to_host` widens back to int32 for the formatter.
     """
     if k <= 8:

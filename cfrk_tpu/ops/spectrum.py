@@ -1,4 +1,4 @@
-"""Global k-mer spectrum (one table over all reads) on TPU.
+"""Global k-mer spectrum (one table over all reads).
 
 The reference has no global-spectrum mode at all — its only aggregate is
 per-read (SURVEY.md §5: no inter-process data exchange anywhere).  This is
@@ -6,12 +6,14 @@ new capability demanded by BASELINE.json configs 3-5.
 
 Two dense implementations:
 
-* ``matmul`` (k <= 8): the same MXU one-hot outer-product trick as
-  perread.py but contracting over reads AND windows — a single
+* ``matmul`` (auto for k <= 6): the one-hot outer-product contraction
+  of perread.py, over reads AND windows — a single
   ``[4**kh, W_total] @ [W_total, 4**kl]`` matmul.
-* ``scatter`` (k <= 15): XLA scatter-add into a flat ``4**k`` table.
-  Invalid windows are redirected to index 4**k and dropped by the
-  out-of-bounds ``mode='drop'`` semantics, so there is no branch.
+* ``scatter`` (auto for 7 <= k <= 15): XLA scatter-add into a flat
+  ``4**k`` table (atomic adds on the GPU — the reference's
+  ``ComputeFreqNew`` design, summed over reads).  Invalid windows are
+  redirected to index 4**k and dropped by the out-of-bounds
+  ``mode='drop'`` semantics, so there is no branch.
 
 Device tables are int32 (per-batch counts are far below 2**31); the
 streaming pipeline accumulates across batches into an int64 host table.
@@ -34,18 +36,9 @@ from .encode import (
     window_indices,
 )
 
-__all__ = ["spectrum", "MAX_DENSE_SPECTRUM_K"]
+__all__ = ["spectrum", "resolve_spectrum_impl", "MAX_DENSE_SPECTRUM_K"]
 
 MAX_DENSE_SPECTRUM_K = 15
-
-# The one-hot Pallas kernel's measured per-base optimum is an 8192-read
-# invocation: 1.48 ms (0.81 of family SOL) vs 4.88 ms at 16384 and
-# 10.0 ms at 32768 (round 4 batch ladder, docs/PERF.md "Spectrum route
-# crossover").  Larger driver batches are sliced to this size inside
-# the traced step — tables sum exactly — so the stream keeps its
-# dispatch-amortizing auto batch while the kernel runs at its optimum.
-SPECTRUM_PALLAS_BATCH = 8192
-
 
 @partial(jax.jit, static_argnums=(1, 2), inline=True)
 def _spectrum_scatter(codes: jax.Array, k: int, canonical: bool) -> jax.Array:
@@ -56,8 +49,8 @@ def _spectrum_scatter(codes: jax.Array, k: int, canonical: bool) -> jax.Array:
     return table.at[flat].add(1, mode="drop")
 
 
-@partial(jax.jit, static_argnums=(1, 2, 3), inline=True)
-def _spectrum_matmul(codes: jax.Array, k: int, canonical: bool, acc_dtype) -> jax.Array:
+@partial(jax.jit, static_argnums=(1, 2), inline=True)
+def _spectrum_matmul(codes: jax.Array, k: int, canonical: bool) -> jax.Array:
     kh, kl = split_k(k)
     fh, fl = 4**kh, 4**kl
     if canonical:
@@ -68,10 +61,22 @@ def _spectrum_matmul(codes: jax.Array, k: int, canonical: bool, acc_dtype) -> ja
     hi = hi.reshape(-1)
     lo = lo.reshape(-1)
     valid = valid.reshape(-1)
-    oh_hi = jax.nn.one_hot(hi, fh, dtype=acc_dtype) * valid[:, None].astype(acc_dtype)
-    oh_lo = jax.nn.one_hot(lo, fl, dtype=acc_dtype)
+    oh_hi = jax.nn.one_hot(hi, fh, dtype=jnp.float32) * valid[:, None].astype(jnp.float32)
+    oh_lo = jax.nn.one_hot(lo, fl, dtype=jnp.float32)
     table = jnp.einsum("wh,wl->hl", oh_hi, oh_lo, preferred_element_type=jnp.float32)
     return table.reshape(fh * fl).astype(jnp.int32)
+
+
+def resolve_spectrum_impl(k: int, n_windows: int, impl: str = "auto") -> str:
+    """The device route for a dense-spectrum batch of ``n_windows``
+    windows: ``matmul`` for k <= 6, ``scatter`` above.  float32 one-hot
+    bins are exact only below 2**24, so a matmul batch with that many
+    windows reroutes to the int32 scatter."""
+    if impl == "auto":
+        impl = "matmul" if k <= 6 else "scatter"
+    if impl == "matmul" and n_windows >= 2**24:
+        return "scatter"
+    return impl
 
 
 def spectrum(
@@ -80,7 +85,6 @@ def spectrum(
     *,
     canonical: bool = False,
     impl: str = "auto",
-    acc_dtype=None,
 ) -> jax.Array:
     """Global dense spectrum: codes [..., L] int8 → counts [4**k] int32."""
     if impl == "sort":
@@ -89,52 +93,15 @@ def spectrum(
             "stream_spectrum_file accumulate sparsely and densify once); "
             "spectrum() itself is dense per batch"
         )
-    n_windows = math.prod(codes.shape[:-1]) * max(codes.shape[-1] - k + 1, 0)
-    if n_windows >= 2**24 and (
-        impl == "matmul"
-        or (
-            impl == "auto"
-            and not (k <= 10 and jax.default_backend() == "tpu")
-        )
-    ):
-        # f32 einsum accumulation is exact only below 2**24; a
-        # degenerate batch (all one k-mer) could exceed it.  Scatter
-        # accumulates in int32.  The pallas kernel (the TPU auto choice)
-        # accumulates in int32 too (int8 MXU mode) — exact for any
-        # window count, no reroute needed.
-        impl = "scatter"
     if k > MAX_DENSE_SPECTRUM_K:
         raise ValueError(
             f"dense spectrum supports k <= {MAX_DENSE_SPECTRUM_K}; "
             "use the bucketed sparse mode (parallel/bucket.py) for larger k"
         )
-    if impl == "auto":
-        if k <= 10 and jax.default_backend() == "tpu":
-            # Deep-contraction MXU kernel (int8/int32 accumulation,
-            # ~4x the XLA scatter throughput); the VMEM accumulator
-            # fits through k=10 (4 MB int32).
-            impl = "pallas"
-        else:
-            impl = "matmul" if k <= 6 else "scatter"
+    n_windows = math.prod(codes.shape[:-1]) * max(codes.shape[-1] - k + 1, 0)
+    impl = resolve_spectrum_impl(k, n_windows, impl)
     if impl == "scatter":
         return _spectrum_scatter(codes, k, canonical)
     if impl == "matmul":
-        if acc_dtype is None:
-            acc_dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
-        return _spectrum_matmul(codes, k, canonical, acc_dtype)
-    if impl == "pallas":
-        from .pallas.spectrum import spectrum_pallas
-
-        b = math.prod(codes.shape[:-1])
-        if b > SPECTRUM_PALLAS_BATCH:
-            flat = codes.reshape(b, codes.shape[-1])
-            table = None
-            for s in range(0, b, SPECTRUM_PALLAS_BATCH):
-                part = spectrum_pallas(
-                    flat[s : s + SPECTRUM_PALLAS_BATCH], k,
-                    canonical=canonical,
-                )
-                table = part if table is None else table + part
-            return table
-        return spectrum_pallas(codes, k, canonical=canonical)
+        return _spectrum_matmul(codes, k, canonical)
     raise ValueError(f"unknown impl {impl!r}")

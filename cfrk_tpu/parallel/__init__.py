@@ -1,4 +1,4 @@
-"""Multi-chip / multi-host parallelism: meshes, sharded ops, halo exchange."""
+"""Multi-device / multi-host parallelism: meshes, sharded ops, halo exchange."""
 
 from .bucket import sparse_spectrum_sharded
 from .distributed import host_shard, maybe_initialize_distributed

@@ -7,7 +7,7 @@ all-to-all bucket routing, multi-host").  Each device:
 2. assigns every key a bucket = owner device (top bits of the key, so
    the global output is ordered by device rank);
 3. sorts locally by (bucket, hi, lo) and counts per-bucket occupancy;
-4. exchanges fixed-capacity bucket boxes with ``all_to_all`` over ICI;
+4. exchanges fixed-capacity bucket boxes with ``all_to_all``;
 5. re-sorts what it received and run-length-encodes — each device now
    holds the exact global counts for its own key range.
 
@@ -17,7 +17,7 @@ detected and reported (an ``overflowed`` flag per device) rather than
 silently dropped.  With random genomes the bucket distribution is
 near-uniform; callers raise capacity for skewed data.
 
-This is the TPU-native equivalent of the reference's *absent*
+This is the equivalent of the reference's *absent*
 distributed layer — the reference only ever sharded whole files across
 processes (reference ``swift/cfrk.swf:14-20``).
 """
@@ -74,7 +74,7 @@ def _sparse_sharded_fn(mesh: Mesh, k: int, canonical: bool, slack: float):
 
     # For k <= LO_BASES the hi key half is structurally 0 for every
     # valid key (sentinel exactly when lo is): drop it from the sorts
-    # AND the all_to_all — one third less ICI exchange traffic and half
+    # AND the all_to_all — one third less exchange traffic and half
     # the re-sort operands — and reconstruct it after the RLE.
     small = k <= LO_BASES
 

@@ -1,8 +1,8 @@
 """Multi-host initialisation and host-sharded input planning.
 
 The reference's multi-node story was "run a separate process per FASTA
-shard" (reference ``swift/cfrk.swf:14-20``).  On a TPU pod slice the
-equivalent is one jax process per host inside a single SPMD program:
+shard" (reference ``swift/cfrk.swf:14-20``).  Here the equivalent is one
+jax process per host (or per card) inside a single SPMD program:
 
 * :func:`maybe_initialize_distributed` wires ``jax.distributed`` from
   the standard coordinator env vars (no-op on a single host / when
@@ -11,8 +11,8 @@ equivalent is one jax process per host inside a single SPMD program:
   (zero collectives) reads disjoint inputs per host — the Swift/K
   sharding pattern, without the scheduler;
 * global-spectrum / sparse modes then merge across hosts through the
-  regular mesh collectives (psum / psum_scatter / all_to_all ride ICI
-  within a host and DCN across hosts; XLA picks the transport).
+  regular mesh collectives (psum / psum_scatter / all_to_all; XLA
+  hands them to NCCL).
 """
 
 from __future__ import annotations
@@ -39,11 +39,14 @@ def maybe_initialize_distributed(force: bool = False) -> bool:
     without coordinator env vars (and force=False) it is a no-op, so
     single-host runs need no changes.
 
-    On managed clusters (GKE TPU pods, SLURM) ``initialize()``
-    auto-detects everything.  For manual launches the standard triplet
-    is read from ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    On managed clusters (SLURM, Open MPI) ``initialize()`` auto-detects
+    everything.  For manual launches the standard triplet is read from
+    ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
     ``JAX_PROCESS_ID`` and passed explicitly (jax only auto-detects on
-    recognised cluster environments).
+    recognised cluster environments).  When ``LOCAL_RANK`` is set too
+    (several processes on one host), process ``LOCAL_RANK`` takes the
+    host's card of that index and no other: a JAX process reserves most
+    of each card it opens, so two processes must never share one.
     """
     import jax
 
@@ -78,6 +81,9 @@ def maybe_initialize_distributed(force: bool = False) -> bool:
             "is missing — a manual multi-process launch needs all of "
             "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID"
         )
+    local_rank = os.environ.get("LOCAL_RANK")
+    if local_rank is not None:
+        kwargs["local_device_ids"] = [int(local_rank)]
     try:
         jax.distributed.initialize(**kwargs)
     except RuntimeError as e:

@@ -2,16 +2,16 @@
 
 The reference's only scale-out was one OS process per FASTA shard via a
 Swift/K workflow (reference ``swift/cfrk.swf:14-20``) — zero inter-process
-communication.  The TPU-native replacement is a single SPMD program over a
-``jax.sharding.Mesh``; collectives ride ICI within a host and DCN across
-hosts.
+communication.  The replacement here is a single SPMD program over a
+``jax.sharding.Mesh``; XLA lowers its collectives to NCCL, over NVLink
+within a host and the network across hosts.
 
 Axes:
 
 * ``dp`` — data parallel over reads.  Per-read counting needs ZERO
   communication on this axis (mirrors the reference's shard model).
 * ``tp`` — table parallel over the 4**k spectrum bins.  Global spectra
-  are reduce-scattered over ``tp`` so each chip holds 4**k / tp bins.
+  are reduce-scattered over ``tp`` so each device holds 4**k / tp bins.
 
 Sequence parallelism over very long reads (contigs) uses its own 1-D mesh
 (see ``seqpar.py``).

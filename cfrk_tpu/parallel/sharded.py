@@ -1,21 +1,22 @@
-"""Sharded (multi-chip) counting: shard_map over a (dp, tp) mesh.
+"""Sharded (multi-device) counting: shard_map over a (dp, tp) mesh.
 
 Replaces — and goes beyond — the reference's Swift/K file-shard scale-out
 (reference ``swift/cfrk.swf:14-20``), which never exchanged data between
 processes:
 
 * ``count_perread_sharded`` — per-read mode.  Reads are sharded over
-  ``dp``; each chip counts its rows independently.  Zero collectives,
+  ``dp``; each device counts its rows independently.  Zero collectives,
   exactly the reference's communication pattern, but inside one SPMD
-  program so a pod slice looks like one device to the driver.
+  program so several cards look like one device to the driver.
 * ``spectrum_sharded`` — global-spectrum mode (new capability).  Each
-  chip computes a local dense table; tables are summed with ``psum``
+  device computes a local dense table; tables are summed with ``psum``
   over ``dp``.  With tp > 1 the summed table is ``psum_scatter``-ed over
-  ``tp`` so each chip keeps only 4**k / tp bins — the result lives
+  ``tp`` so each device keeps only 4**k / tp bins — the result lives
   sharded (bins over tp), avoiding 4**k replication at large k.
 
-Both are ordinary jitted functions of sharded arrays: XLA inserts the ICI
-collectives, overlapping them with compute where possible.
+Both are ordinary jitted functions of sharded arrays: XLA inserts the
+collectives (NCCL over NVLink on a multi-GPU host), overlapping them
+with compute where possible.
 """
 
 from __future__ import annotations
@@ -28,13 +29,11 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from ..ops.perread import count_perread
-from ..ops.pallas.perread import DEFAULT_READ_BLOCK
 from ..ops.spectrum import spectrum
 from .mesh import DP_AXIS, TP_AXIS, batch_sharding
 
 __all__ = [
     "count_perread_sharded",
-    "count_perread_sharded_packed",
     "count_perread_sparse_sharded",
     "spectrum_sharded",
     "shard_batch",
@@ -53,13 +52,9 @@ def shard_batch(codes, mesh: Mesh):
 @lru_cache(maxsize=None)
 def _perread_sharded_fn(mesh: Mesh, k: int, canonical: bool, impl: str):
     """One cached jit wrapper per (mesh, config): repeated streaming calls
-    reuse the traced/compiled executable instead of re-jitting.
-
-    shard_map, not bare jit-with-shardings: the auto impl resolves to a
-    Pallas kernel on TPU (k >= 5), and GSPMD has no partitioning rule
-    for the Mosaic custom call — shard_map runs the kernel per-device
-    on its own row block, which is exactly the zero-collective dp
-    semantics this op promises."""
+    reuse the traced/compiled executable instead of re-jitting.  Each
+    device counts its own row block — the zero-collective dp semantics
+    this op promises."""
 
     def local(codes_blk):
         return count_perread(codes_blk, k, canonical=canonical, impl=impl)
@@ -68,7 +63,6 @@ def _perread_sharded_fn(mesh: Mesh, k: int, canonical: bool, impl: str):
     return jax.jit(
         shard_map(
             local, mesh=mesh, in_specs=spec, out_specs=spec,
-            check_vma=False,  # pallas_call inside shard_map needs this
         )
     )
 
@@ -85,66 +79,9 @@ def count_perread_sharded(
 
     codes: [B, L] int8 (device-put with ``shard_batch`` or host array).
     Returns [B, 4**k] int32 sharded the same way.  Data-parallel per-read
-    counting requires no cross-chip communication at all.
+    counting requires no cross-device communication at all.
     """
     return _perread_sharded_fn(mesh, k, canonical, impl)(codes)
-
-
-@lru_cache(maxsize=None)
-def _perread_sharded_packed_fn(mesh: Mesh, k: int, canonical: bool,
-                               packed: str, read_block: int):
-    """Packed-emit variant: each device runs the packed Pallas kernel on
-    its own row block, so the dominant HBM write AND the D2H gather stay
-    packed (1 or 2 bytes/bin) all the way to the host unpack."""
-    from ..ops.pallas.perread import count_perread_pallas
-
-    def local(codes_blk):
-        return count_perread_pallas(
-            codes_blk, k, canonical=canonical, packed=packed,
-            read_block=read_block,
-        )
-
-    return jax.jit(
-        shard_map(
-            local, mesh=mesh,
-            in_specs=P((DP_AXIS, TP_AXIS), None),
-            out_specs=P((DP_AXIS, TP_AXIS), None, None),
-            check_vma=False,  # pallas_call inside shard_map needs this
-        )
-    )
-
-
-def count_perread_sharded_packed(
-    codes: jax.Array,
-    k: int,
-    mesh: Mesh,
-    *,
-    canonical: bool = False,
-    packed: str = "b4",
-    read_block: int | None = None,
-) -> jax.Array:
-    """Per-read counts, rows over dp, PACKED kernel output.
-
-    Returns the packed rank-3 layout of ``ops.pallas.perread``
-    (``"b4"``: [B, 4**kh/4, 4**kl] int32, one byte per bin; ``"fh"``:
-    [B, 4**kh/2, 4**kl], two bytes) sharded rows-over-devices — unpack
-    on host with ``unpack_counts`` after the (packed-size) D2H.  The
-    per-device row block must divide ``read_block`` exactly: a local
-    kernel pad would change the concatenated row count, so rows/device
-    % read_block == 0 is enforced here rather than silently padded.
-    """
-    if read_block is None:
-        read_block = DEFAULT_READ_BLOCK
-    b = codes.shape[0]
-    ndev = mesh.size
-    if b % ndev or (b // ndev) % read_block:
-        raise ValueError(
-            f"packed sharded rows/device must be a multiple of "
-            f"read_block={read_block}: got {b} rows on {ndev} devices"
-        )
-    return _perread_sharded_packed_fn(
-        mesh, k, canonical, packed, read_block
-    )(codes)
 
 
 @lru_cache(maxsize=None)
@@ -155,8 +92,6 @@ def _perread_sparse_sharded_fn(mesh: Mesh, k: int, canonical: bool):
     from ..ops.perread_sparse import count_perread_rows
 
     def local(codes_blk):
-        # count_perread_rows resolves to the fused Pallas rowsort kernel
-        # on TPU (per-device block, zero collectives) and lax.sort off it.
         return count_perread_rows(codes_blk, k, canonical)
 
     spec = P((DP_AXIS, TP_AXIS), None)
@@ -164,7 +99,6 @@ def _perread_sparse_sharded_fn(mesh: Mesh, k: int, canonical: bool):
     return jax.jit(
         shard_map(
             local, mesh=mesh, in_specs=spec, out_specs=(spec,) * n_out,
-            check_vma=False,
         )
     )
 
@@ -181,8 +115,8 @@ def count_perread_sparse_sharded(
     codes: [B, L] int8, B divisible by the mesh size.  Returns the same
     row-sorted RLE layout as ``ops.perread_sparse``: an (idx, counts)
     pair for k <= 15 or an (hi, lo, counts) triple for k <= 31, each
-    [B, W] and sharded rows-over-devices.  Zero collectives — the
-    bitonic sorts run per row inside each device's block.
+    [B, W] and sharded rows-over-devices.  Zero collectives — the row
+    sorts run inside each device's block.
     """
     return _perread_sparse_sharded_fn(mesh, k, canonical)(codes)
 
@@ -201,7 +135,7 @@ def _spectrum_sharded_fn(mesh: Mesh, k: int, canonical: bool, impl: str):
         if tp > 1:
             tbl = jax.lax.psum(tbl, DP_AXIS)
             # Sum the tp partials while scattering bins over tp: each
-            # chip keeps 4**k / tp bins of the global table.
+            # device keeps 4**k / tp bins of the global table.
             tbl = jax.lax.psum_scatter(tbl, TP_AXIS, scatter_dimension=0, tiled=True)
         else:
             # psum over both axes so the replication over the (size-1)
@@ -215,7 +149,6 @@ def _spectrum_sharded_fn(mesh: Mesh, k: int, canonical: bool, impl: str):
             mesh=mesh,
             in_specs=P((DP_AXIS, TP_AXIS), None),
             out_specs=P(TP_AXIS) if tp > 1 else P(),
-            check_vma=False,  # pallas_call inside shard_map needs this
         )
     )
 
@@ -231,7 +164,7 @@ def spectrum_sharded(
     """Global spectrum over all reads on a (dp, tp) mesh.
 
     Returns the [4**k] int32 table sharded bins-over-tp (replicated over
-    dp).  Local per-chip dense tables are merged with ``psum`` over dp and
+    dp).  Local per-device dense tables are merged with ``psum`` over dp and
     ``psum_scatter`` over tp.
     """
     return _spectrum_sharded_fn(mesh, k, canonical, impl)(codes)

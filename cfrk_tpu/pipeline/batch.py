@@ -32,38 +32,25 @@ __all__ = [
 
 PAD = -1
 
-# Padded bases per device batch targeted by auto batch sizing: every
-# jitted dispatch carries a fixed driver cost (Python enqueue + XLA
-# per-call overhead), so reads/batch should scale INVERSELY with read
-# length.  8 Mi padded bases reproduces the measured optimum at 150 bp
-# (32768 reads/batch: 5.43 Gbases/s vs 4.6 at 8192 — docs/PERF.md
-# "Row-sort kernel") while long-contig batches shrink to bound the
-# padded-batch HBM footprint.
+# Padded bases per device batch targeted by auto batch sizing.  It is a
+# memory bound first: reads/batch scale INVERSELY with read length, so a
+# batch of long contigs holds about as many padded bases (and per-window
+# key/pair streams on the device) as a batch of short reads, while short
+# reads still get batches large enough to amortize the fixed per-dispatch
+# host cost.  The value has not been tuned on the H100.
 AUTO_BATCH_TARGET_BASES = 8 << 20
 
 
-def auto_batch_size(
-    read_len_hint: int | None, backend: str | None = None
-) -> int:
+def auto_batch_size(read_len_hint: int | None) -> int:
     """Reads/batch for a read-length hint (the CLI/bench default).
 
-    On TPU: AUTO_BATCH_TARGET_BASES // len_bucket(hint), clamped to
-    [512, 65536] and rounded to a 512 multiple (the rowsort kernel's
-    default read block).  Contig-class rows (bucket > 64 kb) drop the
-    512-read floor: it would override the padded-bases target by up to
-    32x, and at ~1 Mb contigs the per-window int32 streams (key in,
-    pairs out) of a 512-row batch would walk past HBM — such batches
-    clamp to [8, ...] in 8-multiples instead (the read block at
-    g > 128 is single digits anyway; batch-128kb = 64 reads ~ 1.5 GB
-    of streams).  Without a hint (unreadable input, stdin) or off-TPU
-    the historical 8192 stands — CPU runs are compile/host bound, not
-    dispatch bound.
+    AUTO_BATCH_TARGET_BASES // len_bucket(hint), clamped to [512, 65536]
+    and rounded to a 512 multiple.  Contig-class rows (bucket > 64 kb)
+    drop the 512-read floor, which would override the padded-bases
+    bound by up to 32x: they clamp to [8, ...] in 8-multiples.  Without
+    a hint (unreadable input, stdin) the historical 8192 stands.
     """
-    if backend is None:
-        import jax
-
-        backend = jax.default_backend()
-    if backend != "tpu" or not read_len_hint:
+    if not read_len_hint:
         return 8192
     bucket = len_bucket(max(int(read_len_hint), 1))
     b = AUTO_BATCH_TARGET_BASES // bucket

@@ -178,26 +178,19 @@ def count_reads(
         bs = -(-bs // mesh.size) * mesh.size
     out = np.zeros((len(reads), 4**k), dtype=np.int32)
     row = 0
-    pending: list[tuple[int, int, object, object]] = []
+    pending: list[tuple[int, int, object]] = []
 
-    def materialise(r0, n, c, pk):
-        if pk:
-            from ..ops.pallas.perread import unpack_counts
+    def materialise(r0, n, c):
+        out[r0 : r0 + n] = np.asarray(c)[:n]
 
-            out[r0 : r0 + n] = unpack_counts(np.asarray(c), n, mode=pk)
-        else:
-            out[r0 : r0 + n] = np.asarray(c)[:n]
-
-    from ..ops.pallas.perread import packed_auto
     for batch in iter_batches(reads, bs, ml):
         # int16 device counts (exact; bounded by windows/read) halve the
-        # dominant HBM write and the D2H transfer.
+        # output bytes and the D2H transfer.
         odt = (
             jax.numpy.int16
             if batch.max_len - k + 1 < 2**15
             else jax.numpy.int32
         )
-        pk = False
         if mesh is not None and seqpar:
             from ..parallel.seqpar import count_perread_seqpar
 
@@ -206,45 +199,11 @@ def count_reads(
                 canonical=canonical, impl=impl,
             )
         elif mesh is not None:
-            from ..ops.pallas.perread import DEFAULT_READ_BLOCK, resolve_packed
+            from ..parallel.sharded import count_perread_sharded
 
-            rb = DEFAULT_READ_BLOCK
-            w = batch.max_len - k + 1
-            if (
-                packed_auto(impl, k, w)
-                and (batch.codes.shape[0] // mesh.size) % rb == 0
-            ):
-                # Same packed policy as the streaming mesh dispatch:
-                # each device emits its packed row block (1-2 bytes/bin
-                # of HBM write + D2H instead of 4), unpacked on host.
-                from ..parallel.sharded import count_perread_sharded_packed
-
-                pk = resolve_packed(True, w)
-                counts = count_perread_sharded_packed(
-                    jax.numpy.asarray(batch.codes), k, mesh,
-                    canonical=canonical, packed=pk, read_block=rb,
-                )
-            else:
-                from ..parallel.sharded import count_perread_sharded
-
-                counts = count_perread_sharded(
-                    jax.numpy.asarray(batch.codes), k, mesh,
-                    canonical=canonical, impl=impl,
-                )
-        elif packed_auto(impl, k, batch.max_len - k + 1):
-            # Packed Pallas output (1-2 bytes/bin): less HBM write AND
-            # 2-4x less D2H than int16 dense; unpacked on host.
-            from ..ops.pallas.perread import (
-                DEFAULT_READ_BLOCK,
-                count_perread_pallas,
-                resolve_packed,
-            )
-
-            pk = resolve_packed(True, batch.max_len - k + 1)
-            counts = count_perread_pallas(
-                jax.numpy.asarray(batch.codes), k,
-                canonical=canonical, packed=pk,
-                read_block=DEFAULT_READ_BLOCK,
+            counts = count_perread_sharded(
+                jax.numpy.asarray(batch.codes), k, mesh,
+                canonical=canonical, impl=impl,
             )
         else:
             counts = count_perread(
@@ -253,7 +212,7 @@ def count_reads(
             )
         # Keep device queue deep: materialise the previous batch while this
         # one computes (async dispatch does the overlap).
-        pending.append((row, batch.n_reads, counts, pk))
+        pending.append((row, batch.n_reads, counts))
         row += batch.n_reads
         if len(pending) > 2:
             materialise(*pending.pop(0))
@@ -294,14 +253,12 @@ def spectrum_file(
     bs, ml = _plan_shapes(reads, k, batch_size, max_len)
     if mesh is not None and not seqpar:
         bs = -(-bs // mesh.size) * mesh.size
-    if _use_sorted_spectrum(k, impl, seqpar):
-        # The sorted route (auto for k >= 9 on TPU): sort+RLE the keys
-        # on device per batch (for k <= 15 the sparse key IS the dense
-        # index); k <= 10 folds batches into a dense table with the
-        # threaded native histogram, k >= 11 merges sparsely on host
-        # and densifies once.  See _use_sorted_spectrum for the
-        # measured crossover vs the one-hot kernel.
-        # Under seqpar each device sorts its own position slice's
+    if impl == "sort":
+        # The sorted route (impl='sort'): sort+RLE the keys on device
+        # per batch (for k <= 15 the sparse key IS the dense index);
+        # k <= 10 folds batches into a dense table with the threaded
+        # native histogram, k >= 11 merges sparsely on host and
+        # densifies once.  Under seqpar each device sorts its own position slice's
         # windows (parallel/seqpar.spectrum_seqpar_triples) instead of
         # falling back to the ~54 Mb/s scatter accumulator.
         keys, counts = _sorted_spectrum_batches(
@@ -340,39 +297,13 @@ def spectrum_file(
     return acc.total()
 
 
-def _use_sorted_spectrum(k: int, impl: str, seqpar: bool = False) -> bool:
-    """Route dense spectra through the sort+RLE machinery.
-
-    Auto on TPU for k >= 9 (round 4; was k >= 11).  Measured policy
-    (docs/PERF.md "Spectrum route crossover"): the one-hot kernel's
-    VPU build cost grows with 4**ceil(k/2) — 417 Mbases/s at k=9 and
-    143 at k=10 on-chip — while the sorted route holds its ~5.5 Gb/s
-    device rate at any k and its host fold (threaded native histogram,
-    DenseFoldAccumulator for k <= 10) runs ~680 Mb/s even on this
-    4-vCPU dev VM.  At k <= 8 the one-hot kernel keeps the default:
-    zero per-batch D2H with the table device-resident — every
-    device-side pair->table fold candidate measured 3-15x worse
-    (tools/fold_probe.py).  Explicit ``impl='sort'`` forces the sorted
-    route anywhere, for ANY k (CPU tests, hosts with spare cores).
-    Seqpar composes since round 3: each device sorts its own position
-    slice (the round-2 fallback was the ~54 Mb/s scatter accumulator).
-    """
-    if impl == "sort":
-        return True
-    if k <= 8:
-        return False
-    import jax
-
-    return impl == "auto" and jax.default_backend() == "tpu"
-
-
 def _sorted_spectrum_batches(batches, k, canonical, mesh, seqpar=False):
     """Accumulate batches sparsely (device sort+RLE); returns the merged
     (keys, counts) arrays.  With a dp/tp mesh, keys route through the
     all_to_all bucket exchange with overflow retry; with a seqpar mesh,
     each device sorts its own position slice (rows_to_triples merges the
     slice duplicates on host like any batch duplicates); single-device
-    batches use per-read row sorts (the fused Pallas kernel on TPU)."""
+    batches use per-read row sorts."""
     from ..ops.sparse import (
         SparseAccumulator,
         batch_spectrum_triples,
@@ -388,7 +319,7 @@ def _sorted_spectrum_batches(batches, k, canonical, mesh, seqpar=False):
     from ..ops.sparse import DenseFoldAccumulator
 
     # k <= 10: dense threaded fold (8 MB table max) instead of the
-    # searchsorted sparse merge — see _use_sorted_spectrum.
+    # searchsorted sparse merge.
     acc = DenseFoldAccumulator(k) if k <= 10 else SparseAccumulator()
     slack = 2.0
     for batch in batches:

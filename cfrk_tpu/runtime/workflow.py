@@ -1,4 +1,4 @@
-"""Multi-file workflow orchestration — the Swift/K layer, TPU-native.
+"""Multi-file workflow orchestration — the Swift/K layer.
 
 The reference scaled out by fanning independent `cfrk` processes over
 FASTA shards with a Swift/K script (``swift/cfrk.swf:14-20``) configured
@@ -7,7 +7,7 @@ for ``maxParallelTasks=2``, ``executionRetries=0``, ``lazyErrors=true``
 provenance sqlite (``swift/provenance.sh``, ``swift/query.sh:3`` —
 ``select script_run_id, duration``).
 
-Here one process owns the TPU chip, so file-level parallelism is a
+Here one process owns the accelerator, so file-level parallelism is a
 thread pool: device work naturally serialises on the XLA stream while
 host parse/format/write of other files overlaps it.  Each task gets
 Swift-style retries and lazy-error semantics, and every attempt is
@@ -179,7 +179,6 @@ def count_one_factory(
     spectrum_format: str = "cfrk",
     max_len: int | None = None,
     nonzero: bool = False,
-    packed: bool = False,
     resume: bool = False,
     checkpoint_every: int | None = None,
     min_count: int = 1,
@@ -204,7 +203,7 @@ def count_one_factory(
 
                 m = stream_count_file(
                     inp, out, k, canonical=canonical, impl=impl,
-                    batch_size=batch_size, nonzero=nonzero, packed=packed,
+                    batch_size=batch_size, nonzero=nonzero,
                     resume=res, checkpoint_every=checkpoint_every or 1,
                     mesh=mesh, seqpar=seqpar, min_qual=min_qual,
                 )

@@ -17,7 +17,6 @@ setup(
         "cfrk_tpu.io",
         "cfrk_tpu.io.native",
         "cfrk_tpu.ops",
-        "cfrk_tpu.ops.pallas",
         "cfrk_tpu.parallel",
         "cfrk_tpu.pipeline",
         "cfrk_tpu.runtime",

@@ -117,7 +117,7 @@ def test_sparse_k31_canonical_matches_string_oracle():
 
 
 def test_spectrum_k9_matches_string_oracle():
-    """k=9: the sorted-spectrum auto route's k-range on TPU."""
+    """k=9: the first k past the dense per-read range."""
     seqs = _read_fasta_strings(os.path.join(DATA, "seq2.fasta.gz"))
     sample = seqs[:64]
     want: dict = {}

@@ -198,44 +198,6 @@ def test_sharded_impl_host_reroutes_to_scatter(devices):
     np.testing.assert_array_equal(got, want)
 
 
-def test_sharded_packed_parity_cpu_mesh(devices, rng):
-    """count_perread_sharded_packed (packed pallas inside shard_map,
-    interpret mode off-TPU) is exact vs the NumPy spec on the CPU mesh."""
-    from cfrk_tpu.ops.pallas.perread import resolve_packed, unpack_counts
-    from cfrk_tpu.parallel.sharded import count_perread_sharded_packed
-
-    codes = rng.integers(0, 4, size=(128, 64)).astype(np.int8)
-    codes[rng.random(codes.shape) < 0.05] = -1
-    mesh = make_mesh(devices)
-    pk = resolve_packed(True, 64 - 5 + 1)
-    out = count_perread_sharded_packed(codes, 5, mesh, packed=pk,
-                                       read_block=16)
-    got = unpack_counts(np.asarray(out), 128, mode=pk)
-    np.testing.assert_array_equal(got, count_perread_np(list(codes), 5))
-    # rows/device not divisible by the read block -> clear error
-    import pytest as _pytest
-
-    with _pytest.raises(ValueError, match="read_block"):
-        count_perread_sharded_packed(codes[:72], 5, mesh, packed=pk,
-                                     read_block=16)
-
-
-def test_count_reads_packed_mesh_branch(devices, rng, monkeypatch):
-    """count_reads' packed-on-mesh dispatch (normally TPU-only via
-    packed_auto) produces exact results end-to-end."""
-    import cfrk_tpu.ops.pallas.perread as pp
-    from cfrk_tpu.pipeline.count import count_reads
-
-    monkeypatch.setattr(
-        pp, "packed_auto", lambda impl, k, w: 5 <= k <= 8 and w < 2**15
-    )
-    reads = [rng.integers(0, 4, size=int(rng.integers(20, 60))).astype(np.int8)
-             for _ in range(128)]
-    mesh = make_mesh(devices)
-    got = np.asarray(count_reads(reads, 5, mesh=mesh))
-    np.testing.assert_array_equal(got, count_perread_np(reads, 5))
-
-
 def test_seqpar_sorted_spectrum_triples(devices, rng):
     """Per-slice sort+RLE triples under seqpar must reproduce the dense
     spectrum exactly once folded (round-2 verdict weak #3: the seqpar

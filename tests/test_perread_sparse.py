@@ -229,63 +229,3 @@ def test_narrow_for_fetch_dtype_ladder():
     np.testing.assert_array_equal(c2, rcc)
     np.testing.assert_array_equal(k2[rcc > 0], rk[rcc > 0])
 
-
-def test_tiled_rows_match_oracle_exactly():
-    """count_perread_rows_tiled (position tiles + host merge) is
-    ARRAY-EQUAL to the single-shot oracle, 1-key and 2-key, including
-    N-poisoned windows, repeats, and a ragged last tile."""
-    import numpy as np
-
-    from cfrk_tpu.ops.perread_sparse import (
-        count_perread_rows_tiled,
-        count_perread_sparse,
-        count_perread_sparse_large,
-    )
-
-    rng = np.random.default_rng(11)
-    # small alphabet-heavy rows force many repeated k-mers across tiles
-    codes = rng.integers(0, 4, size=(5, 331)).astype(np.int8)
-    codes[rng.random(codes.shape) < 0.03] = -1
-    codes[3, :] = 0  # poly-A: one giant run spanning every tile
-    codes[4, 200:] = -1  # short read inside the padded batch
-
-    k = 6
-    ri, rc = (np.asarray(a) for a in count_perread_sparse(codes, k))
-    gi, gc = count_perread_rows_tiled(codes, k, step=64)
-    np.testing.assert_array_equal(gi, ri)
-    np.testing.assert_array_equal(gc, rc)
-
-    k = 31
-    rh, rl, rcc = (
-        np.asarray(a) for a in count_perread_sparse_large(codes, k, True)
-    )
-    gh, gl, gcc = count_perread_rows_tiled(codes, k, True, step=64)
-    np.testing.assert_array_equal(gh, rh)
-    np.testing.assert_array_equal(gl, rl)
-    np.testing.assert_array_equal(gcc, rcc)
-
-
-def test_tiled_rows_k12_and_canonical_1key():
-    """ADVICE r4: the un-narrowed int32 1-key branch (k in 9..15) and
-    the canonical 1-key merge were untested — pin both, plus the
-    bounded sub-batch dispatch (rows_per chunking splits these 6 reads
-    x 5 tiles into several dispatches at step=64)."""
-    import numpy as np
-
-    from cfrk_tpu.ops.perread_sparse import (
-        count_perread_rows_tiled,
-        count_perread_sparse,
-    )
-
-    rng = np.random.default_rng(12)
-    codes = rng.integers(0, 4, size=(6, 300)).astype(np.int8)
-    codes[0, 17] = -1
-    codes[2, :] = 1  # poly-C: runs span tiles
-    for k, canonical in ((12, False), (12, True), (9, True)):
-        ri, rc = (
-            np.asarray(a)
-            for a in count_perread_sparse(codes, k, canonical)
-        )
-        gi, gc = count_perread_rows_tiled(codes, k, canonical, step=64)
-        np.testing.assert_array_equal(gi, ri)
-        np.testing.assert_array_equal(gc, rc)

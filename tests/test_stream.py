@@ -262,56 +262,6 @@ def test_stream_mesh_batch_divisibility(tmp_path):
         stream_count_file("x.fasta", "y.cfrk", 4, batch_size=9, mesh=mesh)
 
 
-def test_stream_count_packed(tmp_path):
-    """Packed-pair kernel streaming equals the plain path byte-for-byte."""
-    rng = np.random.default_rng(10)
-    reads = _random_reads(40, rng, lo=30, hi=120)
-    fasta = tmp_path / "r.fasta"
-    _write_fasta(fasta, reads)
-    out_p = tmp_path / "p.cfrk"
-    out_s = tmp_path / "s.cfrk"
-    stream_count_file(fasta, out_p, 5, batch_size=16, packed=True)
-    stream_count_file(fasta, out_s, 5, batch_size=16)
-    assert out_p.read_bytes() == out_s.read_bytes()
-
-
-def test_stream_packed_rejects_large_k_and_bad_mesh_batch(tmp_path):
-    import jax
-    import pytest as _pytest
-
-    from cfrk_tpu.parallel import make_mesh
-
-    with _pytest.raises(ValueError, match="k <= 8"):
-        stream_count_file("x", "y", 9, packed=True)
-    with _pytest.raises(ValueError, match="seqpar"):
-        stream_count_file("x", "y", 4, packed=True, seqpar=True,
-                          mesh=make_mesh(jax.devices()))
-    # 8 devices x batch 24 -> 3 rows/device: not a read-block multiple.
-    with _pytest.raises(ValueError, match="read block"):
-        stream_count_file("x", "y", 4, packed=True, batch_size=24,
-                          mesh=make_mesh(jax.devices()))
-
-
-def test_stream_count_packed_mesh_parity(tmp_path):
-    """Packed streaming over a dp mesh equals the plain single-device
-    run byte-for-byte (each device emits its packed row block; host
-    unpack after the sharded gather)."""
-    import jax
-
-    from cfrk_tpu.parallel import make_mesh
-
-    rng = np.random.default_rng(12)
-    reads = _random_reads(70, rng, lo=30, hi=120)
-    fasta = tmp_path / "r.fasta"
-    _write_fasta(fasta, reads)
-    out_m = tmp_path / "m.cfrk"
-    out_s = tmp_path / "s.cfrk"
-    mesh = make_mesh(jax.devices())
-    stream_count_file(fasta, out_m, 5, batch_size=128, packed=True, mesh=mesh)
-    stream_count_file(fasta, out_s, 5, batch_size=128)
-    assert out_m.read_bytes() == out_s.read_bytes()
-
-
 def test_stream_sparse_spectrum(tmp_path):
     from cfrk_tpu.pipeline.count import sparse_spectrum_file
     from cfrk_tpu.pipeline.stream import stream_sparse_spectrum_file
@@ -626,34 +576,6 @@ def test_stage_timer_accumulates():
     assert t.total >= 0.02
 
 
-def test_stream_packed_flag_still_forces_packed(tmp_path, monkeypatch):
-    """--packed must actually dispatch the packed kernel (spied), not
-    fall back to the dense path, and the bytes must match the dense run."""
-    import cfrk_tpu.ops.pallas.perread as pk
-
-    calls = []
-    real = pk.count_perread_pallas
-
-    def spy(*a, **kw):
-        calls.append(kw.get("packed"))
-        return real(*a, **kw)
-
-    monkeypatch.setattr(pk, "count_perread_pallas", spy)
-    rng = np.random.default_rng(22)
-    reads = _random_reads(24, rng, lo=30, hi=100)
-    fasta = tmp_path / "r.fasta"
-    _write_fasta(fasta, reads)
-    out_p = tmp_path / "p.cfrk"
-    out_d = tmp_path / "d.cfrk"
-    stream_count_file(fasta, out_p, 6, batch_size=8, packed=True)
-    # short reads resolve to the 1-byte/bin b4 packing
-    assert calls and all(p == "b4" for p in calls)  # packed kernel really ran
-    n_packed = len(calls)
-    stream_count_file(fasta, out_d, 6, batch_size=8)  # CPU: dense path
-    assert len(calls) == n_packed  # un-flagged run did not use it off-TPU
-    assert out_p.read_bytes() == out_d.read_bytes()
-
-
 def test_offset_iterator_matches_plain_and_resume(tmp_path):
     from cfrk_tpu.io.fasta import iter_encoded_with_offsets, iter_fasta_encoded
 
@@ -772,8 +694,7 @@ def test_resume_tolerates_corrupt_checkpoint(tmp_path):
 
 
 def test_spectrum_sorted_path_matches_scatter(tmp_path):
-    """The k>=11 sort+RLE spectrum route (auto on TPU, impl='sort'
-    anywhere) must match the scatter path exactly, in-memory and
+    """The k>=11 sort+RLE spectrum route (impl='sort') must match the scatter path exactly, in-memory and
     streaming, single-device and mesh."""
     import jax
 
@@ -819,22 +740,18 @@ def test_spectrum_sorted_path_matches_scatter(tmp_path):
 
 
 def test_spectrum_sorted_dense_fold_small_k(tmp_path):
-    """The k <= 10 sorted spectrum route (auto on TPU for k in 9..10
-    since round 4) folds batches into a dense table with the threaded
-    native histogram (DenseFoldAccumulator) — exact vs the scatter
-    path, in-memory and streaming, plus kill+resume through the dense
-    accumulator's load_arrays."""
-    from cfrk_tpu.pipeline.count import _use_sorted_spectrum, spectrum_file
+    """The k <= 10 sorted spectrum route (impl='sort') folds batches
+    into a dense table with the threaded native histogram
+    (DenseFoldAccumulator) — exact vs the scatter path, in-memory and
+    streaming, plus kill+resume through the dense accumulator's
+    load_arrays."""
+    from cfrk_tpu.pipeline.count import spectrum_file
     from cfrk_tpu.pipeline.stream import stream_spectrum_file
 
     rng = np.random.default_rng(34)
     reads = _random_reads(60, rng, lo=20, hi=160)
     fasta = tmp_path / "r.fasta"
     _write_fasta(fasta, reads)
-
-    # Policy: one-hot keeps k <= 8; sorted owns k >= 9 on TPU.
-    assert _use_sorted_spectrum(9, "sort") and _use_sorted_spectrum(2, "sort")
-    assert not _use_sorted_spectrum(8, "auto")  # off-TPU here either way
 
     for k in (5, 9, 10):
         want = spectrum_file(fasta, k, impl="scatter")
@@ -1236,19 +1153,18 @@ def test_checkpoint_fingerprint_mtime_ns(tmp_path):
 
 
 def test_auto_batch_size_ladder():
-    """Reads/batch scale inversely with length; contig-class buckets
-    (> 64 kb) drop the 512-read floor so padded window streams stay
-    inside HBM (docs/PERF.md)."""
+    """Reads/batch scale inversely with length on every platform;
+    contig-class buckets (> 64 kb) drop the 512-read floor so padded
+    window streams stay inside device memory."""
     from cfrk_tpu.pipeline.batch import auto_batch_size
 
-    assert auto_batch_size(70, backend="tpu") == 65536
-    assert auto_batch_size(150, backend="tpu") == 32768
-    assert auto_batch_size(16000, backend="tpu") == 512
-    assert auto_batch_size(64000, backend="tpu") == 512
-    assert auto_batch_size(131000, backend="tpu") == 64
-    assert auto_batch_size(1_000_000, backend="tpu") == 8
-    assert auto_batch_size(None, backend="tpu") == 8192
-    assert auto_batch_size(150, backend="cpu") == 8192
+    assert auto_batch_size(70) == 65536
+    assert auto_batch_size(150) == 32768
+    assert auto_batch_size(16000) == 512
+    assert auto_batch_size(64000) == 512
+    assert auto_batch_size(131000) == 64
+    assert auto_batch_size(1_000_000) == 8
+    assert auto_batch_size(None) == 8192
 
 
 def test_stream_sparse_mem_budget_byte_identical(tmp_path):

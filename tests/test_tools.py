@@ -289,115 +289,3 @@ def test_query_spectrum_index_tsv_and_cfrk(tmp_path):
     r = _run([str(TOOLS / "query_spectrum.py"), str(pc), "--k", "2", "CC"])
     assert r.stdout.strip() == "CC\t9"
 
-
-def test_round_artifacts_fresh_and_well_formed():
-    """The per-round on-chip artifacts must exist, parse, and carry the
-    fields the judge (and PERF.md) quote: every TPU_VALID check ok and
-    every BENCHSUITE device case with a finite vs_sol <= 1."""
-    import json
-    import os
-
-    root = os.path.join(os.path.dirname(__file__), "..")
-    tv = json.load(open(os.path.join(root, "TPU_VALID.json")))
-    assert tv["ok"] is True
-    assert all(c["ok"] for c in tv["checks"].values())
-    assert "rowsort_compiled_parity" in tv["checks"]
-    assert "mesh_compiled_probes" in tv["checks"]
-
-    import glob
-
-    import re
-
-    def _round_num(p):
-        m = re.search(r"_r(\d+)\.json$", p)
-        return int(m.group(1)) if m else -1
-
-    # Sort by the parsed round NUMBER, not the raw filename: r9 must not
-    # sort after r10 if zero-padding ever changes (ADVICE r3).
-    suites = sorted(
-        glob.glob(os.path.join(root, "BENCHSUITE_r*.json")), key=_round_num
-    )
-    assert suites, "no BENCHSUITE artifact checked in"
-    # Generation recipe (what the checked-in artifact must come from):
-    #   python tools/bench_suite.py --steps 512 --json-out BENCHSUITE_rN.json \
-    #       --only perread_k8,perread_k8_rowsort,perread_k8_short,\
-    #              contig_k8_32kb,contig_k8_128kb,spectrum_k8_pallas,\
-    #              spectrum_k8_sort,spectrum_k9_e2e,spectrum_k15_sort,sparse_k31
-    # Host/golden/stream cases carry no vs_sol — only device cases are
-    # checked for roofline sanity.
-    doc = json.load(open(suites[-1]))
-    assert doc["steps"] >= 512, "artifact predates the 512-step rule"
-    device_cases = [c for c in doc["cases"] if "vs_sol" in c]
-    assert len(device_cases) >= 6, [c["bench"] for c in doc["cases"]]
-    for case in device_cases:
-        assert 0 < case["vs_sol"] <= 1.0, case
-        assert case["value"] > 0 and case["step_ms"] > 0, case
-        assert not case.get("unquotable"), case
-    if _round_num(suites[-1]) >= 5:
-        # Round 5+: the k=9/10 auto spectrum route must be quoted
-        # fold-INCLUSIVE (VERDICT r4 weak #1) with its per-term split
-        # and the fold thread ladder.
-        e2e = [c for c in doc["cases"] if c["bench"] == "spectrum_k9_auto_e2e"]
-        assert e2e, [c["bench"] for c in doc["cases"]]
-        e2e = e2e[0]
-        for field in (
-            "fold_ms_per_batch", "fold_ms_by_threads", "device_step_ms",
-            "fetch_ms_per_batch", "e2e_model_pcie16_bases_per_s",
-            "binding_term",
-        ):
-            assert field in e2e, field
-
-    # SCALING ladder (round 4+): every mode present, honestly labeled
-    # when produced on the virtual CPU mesh, efficiencies finite.
-    ladders = sorted(
-        glob.glob(os.path.join(root, "SCALING_r*.json")), key=_round_num
-    )
-    assert ladders, "no SCALING artifact checked in"
-    sdoc = json.load(open(ladders[-1]))
-    modes = {r["ladder"][0]["mode"] for r in sdoc["runs"]}
-    assert {"perread", "rows", "spectrum"} <= modes, modes
-    for run in sdoc["runs"]:
-        assert "spmd_validation_only" in run
-        if run["platform"] != "tpu":
-            assert run["spmd_validation_only"] is True
-        for row in run["ladder"]:
-            assert row["reads_per_s"] > 0
-            assert 0 < row["efficiency_vs_1dev"]
-
-    # SCALE demo (round 4+, BASELINE config 5 bounded-scale): >= 10M
-    # reads end-to-end through the real CLI, per-stage breakdowns, and
-    # the kill+--resume splice byte-identical to the uninterrupted run.
-    scales = sorted(
-        glob.glob(os.path.join(root, "SCALE_r*.json")), key=_round_num
-    )
-    assert scales, "no SCALE artifact checked in (tools/scale_demo.py)"
-    cdoc = json.load(open(scales[-1]))
-    assert cdoc["reads"] >= 10_000_000, cdoc["reads"]
-    legs = cdoc["legs"]
-    assert {"perread_k8_nonzero", "spectrum_k8", "sparse_k31_resume"} \
-        <= set(legs), sorted(legs)
-    for name in ("perread_k8_nonzero", "spectrum_k8"):
-        leg = legs[name]
-        assert leg["wall_s"] > 0 and leg["bases_per_s"] > 0
-        assert len(leg["sha256"]) == 64
-        assert leg["stats"]["reads"] == cdoc["reads"]
-        assert leg["stats"]["stages_s"], name  # per-stage breakdown
-    sp = legs["sparse_k31_resume"]
-    assert sp["was_killed_midrun"] is True, "kill point never reached"
-    assert sp["byte_equal"] is True, "resume splice output differs"
-    assert sp["full"]["sha256"] == sp["resumed"]["sha256"]
-    # The resumed run must actually have SKIPPED the already-counted
-    # prefix (fewer reads processed than the full run).
-    assert sp["resumed"]["stats"]["reads"] < cdoc["reads"]
-    if _round_num(scales[-1]) >= 5:
-        # Round 5+: the sparse leg runs under an enforced host-memory
-        # budget, and a 2x-reads leg pins the cap's scale-invariance
-        # (peak RSS flat within ~15% while wall scales with reads).
-        assert sp.get("mem_budget_mb"), "sparse leg must be budgeted"
-        chk = legs["sparse_k31_scale_check_20m"]
-        assert chk["reads"] >= 2 * cdoc["reads"]
-        assert chk["peak_rss_mb"] < sp["full"]["ru_maxrss_mb"] * 1.15
-        assert chk["count_mass"] > 0 and chk["count_mass_model"] > 0
-        assert abs(chk["count_mass"] - chk["count_mass_model"]) < (
-            0.01 * chk["count_mass_model"]
-        )

@@ -1,20 +1,20 @@
 """Device-side pair→table fold candidates for the sorted spectrum route.
 
-The round-3 sorted spectrum ships ~8 MB of RLE pairs per batch to a host
-fold; the candidate device folds measured here would keep the 4^k table
+The sorted spectrum route ships its RLE pairs to a host fold every
+batch; the candidate device folds measured here would keep the 4^k table
 device-resident (the analog of the reference's device-memory accumulate,
 ``src/kmer_kernel.cu:87``).  Variants (all: rowsort pairs → 4^k table):
 
     scatter   zeros(4^k).at[idx].add(cnt)    (XLA scatter-add)
     segsum    jax.ops.segment_sum            (same lowering, recorded)
-    onehot    split hi/lo one-hot outer product on the pairs, MXU
-              contraction (the one-hot family fold, fed by pairs)
+    onehot    split hi/lo one-hot outer product on the pairs
+              (the one-hot contraction fold, fed by pairs)
     sortfold  global lax.sort of the flat pairs + RLE + 1-unique scatter
-    none      rowsort alone (the device-side floor the fold adds to)
+    none      row sort alone (the device-side floor the fold adds to)
 
-plus `kernel` = the existing one-hot spectrum kernel (zero D2H, the
-route the fold must beat).  Every step consumes a one-scalar checksum
-(docs/PERF.md "Measurement methodology").
+plus `kernel` = the auto dense-spectrum route straight from the reads
+(zero D2H, the route the fold must beat).  Every step consumes a
+one-scalar checksum.
 
     python tools/fold_probe.py --variant scatter --steps 32
 """
@@ -111,7 +111,7 @@ def main() -> None:
         from cfrk_tpu.ops.spectrum import spectrum as _sp
 
         def step(codes):
-            return jnp.sum(_sp(codes, k, impl="pallas") & 3)
+            return jnp.sum(_sp(codes, k) & 3)
     elif args.variant == "none":
 
         def step(codes):

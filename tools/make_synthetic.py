@@ -97,6 +97,8 @@ def main() -> None:
         opener = gzip.open if args.gzip else open
     chunk = 10_000
     written = 0
+    stacked = np.stack(genomes)
+    offs = np.arange(args.read_len)
     with opener(args.out, "wb") as f:
         while written < args.reads:
             n = min(chunk, args.reads - written)
@@ -106,24 +108,23 @@ def main() -> None:
             starts = rng.integers(
                 0, args.genome_len - args.read_len + 1, size=n
             )
-            lines = []
-            for j in range(n):
-                read = genomes[gi[j]][starts[j] : starts[j] + args.read_len].copy()
-                mut = rng.random(args.read_len) < args.mut_rate
-                read[mut] = rng.integers(0, 4, size=int(mut.sum()))
-                seq = BASES[read].tobytes()
-                if args.n_rate > 0:
-                    arr = bytearray(seq)
-                    for p in np.nonzero(rng.random(args.read_len) < args.n_rate)[0]:
-                        arr[p] = ord("N")
-                    seq = bytes(arr)
-                rid = written + j
-                if args.fastq:
-                    lines.append(
-                        b"@r%d\n%s\n+\n%s\n" % (rid, seq, b"I" * len(seq))
-                    )
-                else:
-                    lines.append(b">r%d\n%s\n" % (rid, seq))
+            reads = stacked[gi[:, None], starts[:, None] + offs]
+            mut = rng.random(reads.shape) < args.mut_rate
+            reads[mut] = rng.integers(0, 4, size=int(mut.sum()))
+            seqs = BASES[reads]
+            if args.n_rate > 0:
+                seqs[rng.random(reads.shape) < args.n_rate] = ord("N")
+            if args.fastq:
+                qual = b"I" * args.read_len
+                lines = [
+                    b"@r%d\n%s\n+\n%s\n" % (written + j, row.tobytes(), qual)
+                    for j, row in enumerate(seqs)
+                ]
+            else:
+                lines = [
+                    b">r%d\n%s\n" % (written + j, row.tobytes())
+                    for j, row in enumerate(seqs)
+                ]
             f.write(b"".join(lines))
             written += n
     print(f"wrote {written} reads to {args.out}", file=sys.stderr)

@@ -5,7 +5,7 @@ for each device count n in a doubling ladder, run a fixed per-device
 workload over an n-device (dp) mesh and report reads/s plus parallel
 efficiency vs n=1.
 
-On real multi-chip hardware this measures true ICI scaling.  On a single
+On a multi-GPU host this measures real scaling over NVLink.  On a single
 host it can still exercise the full SPMD code path via the virtual CPU
 mesh (run with XLA_FLAGS=--xla_force_host_platform_device_count=8); the
 efficiency numbers are then compile-path validation, not performance —
@@ -45,7 +45,7 @@ def main() -> None:
         "--mode",
         choices=["perread", "spectrum", "rows"],
         default="perread",
-        help="rows = sparse per-read pairs (the rowsort kernel on TPU)",
+        help="rows = sparse per-read pairs (the row-sort route)",
     )
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--cpu", action="store_true",
@@ -151,7 +151,7 @@ def main() -> None:
             "k": args.k,
             "reads": b,
             "reads_per_s": round(reads_per_s, 1),
-            # True ICI weak scaling on real multi-chip; 1/n-shaped by
+            # Real weak scaling on several cards; 1/n-shaped by
             # construction on a shared-core virtual mesh (see above).
             "efficiency_vs_1dev": round(eff, 4),
             # SPMD overhead: sharded time vs one unsharded executable
@@ -166,7 +166,7 @@ def main() -> None:
     if args.json_out:
         import datetime
 
-        virtual = jax.default_backend() != "tpu"
+        virtual = jax.default_backend() == "cpu"
         doc = {
             "platform": jax.default_backend(),
             "device_kind": getattr(devices[0], "device_kind", "?"),
@@ -182,9 +182,8 @@ def main() -> None:
             # HONESTY LABEL: on a virtual CPU mesh every "device" shares
             # the same host cores — the ladder validates that the SPMD
             # paths compile + execute at every mesh size, and the
-            # efficiency numbers are NOT performance.  On real
-            # multi-chip hardware this same command measures true ICI
-            # weak scaling (BASELINE "scaling eff. @ N hosts").
+            # efficiency numbers are NOT performance.  On several
+            # cards this same command measures real weak scaling (BASELINE "scaling eff. @ N hosts").
             "spmd_validation_only": virtual,
             "ladder": records,
         }
